@@ -1,6 +1,6 @@
-"""axctdprocessor_tpu — a TPU-native AXCTD audio decoding framework.
+"""axctdprocessor_tpu — an AXCTD audio decoding framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the
+A from-scratch JAX/XLA rebuild of the capabilities of the
 AXCTDprocessor reference (cdens/AXCTDprocessor): decoding Airborne
 eXpendable Conductivity-Temperature-Depth (AXCTD) probe audio — an
 800-baud FSK bitstream (mark 400 Hz / space 800 Hz) in a VHF FM
@@ -12,10 +12,11 @@ Two decode engines are provided:
 * ``models.parity_engine`` — a host-orchestrated streaming state machine
   that is byte-identical to the reference CLI's ``output.txt`` (including
   its chunk semantics; see reference AXCTDprocessor.py:267-338).
-* ``models.tpu_engine`` — a whole-waveform fused decoder built for TPU:
-  framed multi-tone DFT powers on the MXU, parallel IIR via associative
-  scan, pointer-doubling bit-edge chaining and frame sync, vectorized
-  CRC-6 as a GF(2) matmul, and a JAX port of PSS-78 ``SP_from_C``.
+* ``models.tpu_engine`` — a whole-waveform fused decoder for an
+  accelerator (the GPU): framed multi-tone DFT powers as matrix
+  products, FFT-domain filtering, pointer-doubling bit-edge chaining
+  and frame sync, vectorized CRC-6, and a JAX port of PSS-78
+  ``SP_from_C``.
 
 ``parallel`` adds batched (vmap) multi-drop decode and mesh-sharded
 archive reprocessing (data-parallel over drops, sequence-parallel over

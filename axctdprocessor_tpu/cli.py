@@ -60,20 +60,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Honor all flags as documented instead of reproducing the "
                         "reference's effective (partially inert) flag semantics")
     p.add_argument("--engine", choices=["parity", "tpu"], default="parity",
-                   help="Decode engine: byte-parity host engine or fused TPU engine")
+                   help="Decode engine: byte-parity host engine or fused engine")
     p.add_argument("--corpus", metavar="DIR_OR_GLOB",
                    help="Archive mode: decode every WAV in a directory (or glob) "
-                        "with the batched TPU pipeline; -o names the output dir")
+                        "with the batched device pipeline; -o names the output dir")
     p.add_argument("--batch-size", type=int, default=8,
                    help="Drops per device batch in archive mode")
     p.add_argument("--no-resume", action="store_true",
                    help="Archive mode: re-decode files already in the manifest")
     p.add_argument("--wire", choices=["auto", "int16", "int8", "int4"],
                    default="auto",
-                   help="TPU-engine upload format for integer PCM: int8 "
+                   help="Fused-engine upload format for integer PCM: int8 "
                         "halves the host->device bytes (decode-equivalent); "
                         "int4 quarters them (lossy opt-in, ~26 dB SNR); "
-                        "auto picks noise-shaped int4 on real TPU hardware")
+                        "auto is int16")
     p.add_argument("--quiet", action="store_true", help="Suppress progress output")
     p.add_argument("--diagnostics", action="store_true",
                    help="Append per-point R400/dR7500 signal columns to the "
@@ -115,6 +115,10 @@ def _run_corpus(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.corpus or args.engine == "tpu":
+        from .utils.cache import enable_compile_cache
+
+        enable_compile_cache()
 
     if args.corpus:
         return _run_corpus(args)

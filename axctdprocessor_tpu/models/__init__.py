@@ -4,5 +4,5 @@
   header encoder), the inverse of the decode pipeline; the framework's
   test-fixture generator and a model of the probe itself.
 * :mod:`.parity_engine` — reference-exact streaming decoder (host).
-* :mod:`.tpu_engine` — whole-waveform fused TPU decoder.
+* :mod:`.tpu_engine` — whole-waveform fused device decoder.
 """

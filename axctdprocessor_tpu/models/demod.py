@@ -41,7 +41,7 @@ class ChunkDemodResult:
 def design_filter(fs: float, use_bandpass: bool):
     """Order-6 Butterworth SOS: 100-1200 Hz bandpass or 1200 Hz lowpass.
 
-    Single source of truth shared with the TPU engine (ops.iir)."""
+    Single source of truth shared with the fused engine (ops.iir)."""
     from ..ops.iir import design_sos
 
     return design_sos(fs, use_bandpass)

@@ -4,8 +4,8 @@ These are the L2 codec stages (reference parse.py:41-285) rebuilt as
 vectorized NumPy with an index-only jump chain — the same decode results,
 computed by precomputing every window's validity at once (CRC as a GF(2)
 matrix product over all sliding windows) instead of per-bit Python loops.
-The same precompute-then-jump structure is what the TPU engine runs on
-device (ops.framesync).
+The same precompute-then-jump structure is what the fused engine runs on
+device (ops.chain).
 """
 
 from __future__ import annotations
@@ -90,7 +90,7 @@ def parse_header(bits_in) -> dict:
 def header_fields_from_frames(counter_found: list, frame_data: list) -> dict:
     """Field/coefficient decode from per-counter frame data.
 
-    Shared by the host parser above and the fused TPU engine (which
+    Shared by the host parser above and the fused engine (which
     frame-syncs on device and ships back found flags + frame nibbles).
     Raises ValueError on upstream-unparseable coefficient hex — the
     reference's ``int()`` crash (parse.py:277-279), which callers treat

@@ -1,7 +1,7 @@
 """Reference-exact streaming AXCTD decoder (host float64).
 
 This engine reproduces the upstream processor's chunked state machine —
-and therefore its byte-identical ``output.txt`` — while the TPU engine
+and therefore its byte-identical ``output.txt`` — while the fused engine
 (models.tpu_engine) is the throughput path.  Chunking is semantic, not
 just an implementation detail (SURVEY.md 3.6): the tone-power window grid
 restarts at each chunk start, the demodulation filter state resets per
@@ -75,10 +75,10 @@ class DecodeResult:
     hexframes_qc: list = dataclasses.field(default_factory=list)
     # resolved host->device wire format ("int16"/"int8"/"int4"/"float32");
     # None on the host parity path.  Recorded so a decode is attributable
-    # ("auto" resolves differently per backend) — surfaces in the archive
-    # manifest and the --diagnostics report settings echo.
+    # — surfaces in the archive manifest and the --diagnostics report
+    # settings echo.
     wire: str | None = None
-    # TPU-engine truncation indicator (0 = clean): bit 0 crossings hit
+    # Fused-engine truncation indicator (0 = clean): bit 0 crossings hit
     # the Rice-rate capacity, bit 1 bit-edge table full, bit 2 frame-sync
     # accept compaction overflowed, bit 3 frame table full.  Degradation
     # is graceful (excess entries drop), but a clipped decode must be

@@ -315,3 +315,20 @@ def write_wav(path: str, pcm: np.ndarray, fs: int, peak: int = 28000) -> None:
     x = np.asarray(pcm, dtype=np.float64)
     scale = peak / max(np.max(np.abs(x)), 1e-12)
     wavfile.write(path, int(fs), (x * scale).astype(np.int16))
+
+
+def noisy_rows(n_rows: int, spec: SimSpec | None = None, noise_lsb: int = 300,
+               seed: int = 7):
+    """``(rows, truth)``: ``n_rows`` int16 copies of one simulated drop
+    (peak 28000) with independent uniform noise of +-``noise_lsb`` LSB
+    each — a batch no cross-drop caching can help.  The default drop is
+    the bench's 60 s batch drop."""
+    spec = spec or SimSpec(duration=60.0, profile_start=40.0, seed=21)
+    pcm, truth = synthesize(spec)
+    base = np.round(pcm * (28000 / np.max(np.abs(pcm)))).astype(np.int16)
+    rng = np.random.default_rng(seed)
+    rows = np.stack([
+        np.clip(base + rng.integers(-noise_lsb, noise_lsb, len(base)),
+                -32768, 32767).astype(np.int16)
+        for _ in range(n_rows)])
+    return rows, truth

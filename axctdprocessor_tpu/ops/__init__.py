@@ -2,6 +2,5 @@
 
 Each module provides a NumPy float64 implementation (used by the
 byte-parity engine) and, where the op is on the device hot path, a JAX
-implementation designed for TPU (MXU-friendly matmuls, `lax` scans,
-Pallas kernels under ``ops.pallas``).
+implementation (matrix products, `lax` scans, pointer-doubling chains).
 """

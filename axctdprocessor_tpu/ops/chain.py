@@ -15,7 +15,8 @@ doubling: knowing ``chain[0:2^p]`` and the 2^p-step jump table
 ``J_p = next^(2^p)``, the next block is one vectorized gather
 ``chain[2^p : 2^{p+1}] = J_p[chain[0 : 2^p]]``, and ``J_{p+1} = J_p[J_p]``.
 O(log N) gathers of O(N) instead of an O(N) sequential scan — the core
-trick that makes whole-waveform decode latency-viable on TPU.
+trick that makes whole-waveform decode latency-viable on an
+accelerator.
 """
 
 from __future__ import annotations
@@ -41,17 +42,14 @@ def compact_indices(mask: jnp.ndarray, size: int, fill: int):
     """Indices of True entries, compacted into a fixed-size buffer.
 
     Equivalent to ``jnp.where(mask, size=size, fill_value=fill)`` but
-    lowered as cumsum + scatter (3 ops), which measures ~40% faster on
-    TPU than the stock bounded-nonzero lowering at waveform sizes.
-    Returns (indices int32[size], true_count — may exceed `size`, the
-    caller's overflow signal).
+    lowered as cumsum + scatter (3 ops) instead of the stock
+    bounded-nonzero lowering.  Returns (indices int32[size], true_count
+    — may exceed `size`, the caller's overflow signal).
 
     A scatter-free two-level form (``compact_indices_blocked``: 128-lane
-    barrel-shift block compaction + offset stitch) was A/B'd on chip and
-    LOST (36.9 vs 32.3 ms at segment scale): XLA's fixed ~0.5-1 ms
-    per-kernel cost at these sizes makes any multi-pass formulation
-    slower than the 3-op scatter.  Kept below as the recorded negative
-    result; a fused Pallas kernel is the only route past the scatter.
+    barrel-shift block compaction + offset stitch) is kept below for
+    A/B comparison: it lost to the 3-op scatter on the accelerator the
+    decode was first built for, and is not yet measured on the GPU.
     """
     n = mask.shape[0]
     pos = jnp.cumsum(mask.astype(jnp.int32)) - 1
@@ -101,10 +99,9 @@ def compact_indices_blocked(mask: jnp.ndarray, size: int, fill: int):
     """Scatter-free compaction (negative result — see compact_indices).
 
     Two levels: 128-lane blocks compact locally with a barrel shift
-    (element-wise + lane rolls — sequential HBM traffic), then the
+    (element-wise + lane rolls — sequential memory traffic), then the
     global result is stitched from per-block offsets with one
-    size-bounded gather.  Measured SLOWER than the 3-op scatter on chip
-    (kernel-count-bound); kept only for A/B in microbench_chain.py.
+    size-bounded gather.  Kept only for A/B in microbench_chain.py.
     """
     n = mask.shape[0]
     B = 128
@@ -151,8 +148,7 @@ def compact_indices_rowcap(mask: jnp.ndarray, size: int, fill: int,
     """Crossing-mask compaction with a per-128-lane-row survivor cap.
 
     The cumsum+scatter form (compact_indices) pays scatter cost on
-    every SOURCE element (~7 ns each — 7.1 ms of each 1M-sample segment
-    program).  For zero-crossing masks the survivors are provably
+    every SOURCE element.  For zero-crossing masks the survivors are provably
     sparse per row: the demod filter passes <= ~1300 Hz, so crossings
     are >= ~fs/2600 ~= 17 samples apart at 44.1 kHz — at most 9 per
     128-lane row.  A per-row ``top_k`` (one fused XLA op) extracts each
@@ -203,13 +199,11 @@ def chain_enumerate(next_idx: jnp.ndarray, start, length: int,
 
     The jump table is squared only up to ``span = 2^max_level`` steps:
     each squaring is a random gather over the FULL table (the dominant
-    cost — measured 14 ms/level at 1.8M entries on TPU v5e), while
-    extending the chain with an existing table costs only the chain's
-    own length.  The tail is filled by a `lax.scan` over span-sized
-    chunks (``chunk_{t+1} = jumps[chunk_t]``), so the extension count
-    never bloats the HLO graph and the per-chunk cost is span gathers +
-    ~2 us of loop overhead.  Swept on chip at 600 s engine scale
-    (M=1.8M, k=600k): level 6 = 106 ms, 8 = 128 ms, 11 = 164 ms.
+    cost), while extending the chain with an existing table costs only
+    the chain's own length.  The tail is filled by a `lax.scan` over
+    span-sized chunks (``chunk_{t+1} = jumps[chunk_t]``), so the
+    extension count never bloats the HLO graph and the per-chunk cost
+    is span gathers plus loop overhead.
     """
     k = int(length)
     jumps = next_idx.astype(jnp.int32)
@@ -261,9 +255,8 @@ def chain_enumerate_strided(next_idx: jnp.ndarray, start, length: int,
     and a non-stalled L-step walk advances between L and stride_bound*L
     positions, so ``delta_L[i + delta_L[i]]`` is a select over the
     3L+1 *shifted* copies ``delta_L[i + s]``, s in [L, stride_bound*L] —
-    sequential HBM reads the compiler fuses, instead of the full-table
-    random gathers that dominated the chain cost (measured ~14 ms per
-    squaring at 1.8M entries; see `chain_enumerate`).  Stalled walks
+    sequential memory reads the compiler fuses, instead of the
+    full-table random gathers that dominate `chain_enumerate`.  Stalled walks
     (delta < L: the chain hit a fixed point within L steps) fall outside
     the candidate set and keep delta unchanged — which is exact, because
     a stalled walk stays at its fixed point.
@@ -276,7 +269,7 @@ def chain_enumerate_strided(next_idx: jnp.ndarray, start, length: int,
     assert stride_bound << max_level <= 32767, "delta exceeds int16"
     idx = jnp.arange(n, dtype=jnp.int32)
     # deltas stay <= stride_bound * 2^max_level << 32767: int16 halves the
-    # HBM traffic of the shifted-select compositions
+    # memory traffic of the shifted-select compositions
     delta = (next_idx.astype(jnp.int32) - idx).astype(jnp.int16)
     first = min(1 << (k - 1).bit_length(), 1 << max_level)
 
@@ -309,10 +302,8 @@ def chain_enumerate_strided(next_idx: jnp.ndarray, start, length: int,
         return chain0[:k]
 
     # phase 2: scan with the final delta table.  UNROLL jump applications
-    # per scan step amortize the per-iteration dispatch overhead, which
-    # dominated the un-unrolled tail (measured: the L=6..9 sweep was flat
-    # at ~52-57 ms because halving the iteration count doubled the select
-    # cost; the gather work itself is only ~4 ms)
+    # per scan step amortize the per-iteration loop overhead, which
+    # dominated the un-unrolled tail
     d_last = deltas[-1]
     unroll = 8
     n_chunks = -(-(k - first) // (first * unroll))
@@ -345,8 +336,8 @@ def bit_edge_successors(crossings: jnp.ndarray, n_valid, fs: float,
     padded = jnp.concatenate([crossings, jnp.full((5,), big, crossings.dtype)])
     # distances computed on small integer gaps first — comparing absolute
     # sample positions in f32 would quantize by ~2 samples on long files.
-    # The 4 candidates are folded pairwise as (M,) streams: an (M, 4)
-    # stack would tile-pad the 4-lane minor dim to 128 on TPU (32x HBM)
+    # The 4 candidates are folded pairwise as (M,) streams rather than
+    # an (M, 4) stack with a 4-wide minor dimension
     target = jnp.asarray(fs / bitrate, jnp.float32)
     pick = jnp.zeros((m,), jnp.int32)
     best = jnp.abs((padded[1 : 1 + m] - crossings).astype(jnp.float32)
@@ -372,8 +363,8 @@ def enumerate_bit_edges(crossings: jnp.ndarray, n_valid, fs: float,
     """
     nxt = bit_edge_successors(crossings, n_valid, fs, bitrate)
     # the successor stride is bounded (i+1 .. i+4), so the jump-table
-    # squarings run gather-free (chain_enumerate_strided); A/B'd on chip
-    # against the full-gather chain_enumerate — see ROADMAP.md
+    # squarings run gather-free (chain_enumerate_strided) instead of
+    # the full-gather chain_enumerate
     chain = chain_enumerate_strided(nxt, jnp.asarray(0, jnp.int32),
                                     max_edges)
     # valid while strictly advancing
@@ -403,8 +394,7 @@ def enumerate_frames(accept: jnp.ndarray, n_bits, max_steps: int,
     *accept-compacted* domain: compact the accepted offsets (ascending),
     link them with one vectorized ``searchsorted``, and pointer-double a
     ~n/16 table for max_frames steps instead of an n-sized table for
-    max_steps steps (the full-domain walk cost 85 ms at 600 s scale;
-    this is ~5 ms).  Accept capacity n/16 + 1k is 16x the worst real
+    max_steps steps.  Accept capacity n/16 + 1k is 16x the worst real
     accept density (frames every 32 bits + 1/256 spurious CRC passes);
     '10'-prefix accepts can never be adjacent, so even adversarial
     streams stay under the n/2 hard ceiling only 8x above it.

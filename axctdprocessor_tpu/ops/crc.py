@@ -9,10 +9,9 @@ leaves remainder zero.
 Because CRC over GF(2) is linear, validity of every 32-bit window of a
 bitstream can be computed at once as a matrix product: remainder(w) =
 M @ w mod 2 for a fixed 6x32 parity matrix M, evaluated for all sliding
-windows simultaneously.  On TPU this is one small matmul per window
-batch (MXU) instead of the reference's 26-iteration Python loop per
-window — this is the "vectorized CRC validity" kernel used by frame
-sync (see ops.framesync).
+windows simultaneously — one vectorized pass instead of the
+reference's 26-iteration Python loop per window.  This is the
+"vectorized CRC validity" used by frame sync (ops.chain).
 """
 
 from __future__ import annotations
@@ -123,13 +122,12 @@ def check_crc_words(words: jnp.ndarray) -> jnp.ndarray:
 
 
 def check_crc_all_windows(bitstream: jnp.ndarray) -> jnp.ndarray:
-    """CRC validity of every 32-bit sliding window (JAX, TPU-friendly).
+    """CRC validity of every 32-bit sliding window (JAX).
 
     `bitstream` is an int array of 0/1 of static length N; returns a bool
     array of length N (positions past N-32 are False).  Implemented as 32
-    shifted XORs of bit-packed parity rows — pure VPU work on a single
-    (N,) int32 stream, no gathers, no trailing small dim (a (N, 6)
-    remainder would pad to 128 TPU lanes: 21x the HBM traffic).
+    shifted XORs of bit-packed parity rows — elementwise work on a
+    single (N,) int32 stream, no gathers, no (N, 6) remainder array.
     """
     bits = bitstream.astype(jnp.int32)
     n = bits.shape[0]

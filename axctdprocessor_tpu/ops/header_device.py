@@ -109,11 +109,14 @@ def parse_header_frames(bits: jnp.ndarray, n_bits):
 
     nib = fwin[:, 10:26].reshape(-1, 4, 4) @ jnp.asarray([8, 4, 2, 1], jnp.int32)
     slot = jnp.where(counter_ok, counter, HEADER_FRAMES)
-    # later frames with a repeated counter overwrite earlier ones (the
-    # upstream dict assignment has the same last-wins behavior)
-    found = jnp.zeros((HEADER_FRAMES + 1,), bool).at[slot].set(True)[:HEADER_FRAMES]
-    frames = jnp.zeros((HEADER_FRAMES + 1, 4), jnp.int32).at[slot].set(
-        nib)[:HEADER_FRAMES]
+    # later frames with a repeated counter win (the upstream dict
+    # assignment is last-wins).  A scatter-set with duplicate indices
+    # applies them in no fixed order on the GPU, so each slot takes the
+    # max frame index (order-free) and gathers that frame's nibbles.
+    winner = jnp.full((HEADER_FRAMES + 1,), -1, jnp.int32).at[slot].max(
+        jnp.arange(max_frames, dtype=jnp.int32))[:HEADER_FRAMES]
+    found = winner >= 0
+    frames = jnp.where(found[:, None], nib[jnp.maximum(winner, 0)], 0)
     return found, frames
 
 

@@ -1,8 +1,9 @@
-"""Practical Salinity from conductivity (PSS-78), TPU-native.
+"""Practical Salinity from conductivity (PSS-78), in JAX.
 
 The reference pipeline computes salinity with ``gsw.SP_from_C(C, T, z)``
-(reference parse.py:132, gsw 3.3.1).  The GSW library is C code that
-cannot run on a TPU, so this module is a from-scratch implementation of
+(reference parse.py:132, gsw 3.3.1).  The GSW library is host C code
+that cannot run inside a device program, so this module is a
+from-scratch implementation of
 the same published standard:
 
 * PSS-78 (Lewis, 1980; UNESCO technical papers in marine science 44,
@@ -151,7 +152,8 @@ def sp_from_c(c, t, p):
     """JAX Practical Salinity from conductivity (mS/cm), t (ITS-90), p (dbar).
 
     Branchless and jit/vmap-compatible.  Works in the ambient dtype of its
-    inputs (float32 on the TPU fast path, float64 under x64 for parity).
+    inputs (float32 on the device fast path, float64 under x64 for
+    parity).
     """
     c, t, p = jnp.asarray(c), jnp.asarray(t), jnp.asarray(p)
     rt, sp = _core(c, t, p, jnp)

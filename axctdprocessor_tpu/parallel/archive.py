@@ -5,7 +5,7 @@ The BASELINE "1000-drop corpus" path.  Design:
 * **length bucketing** — drops are grouped by padded length (rounded up
   to a bucket granularity) so each bucket compiles once and pads little;
 * **host->device pipelining** — while the device decodes batch k, a
-  background thread reads + conditions batch k+1's WAVs (the TPU analog
+  background thread reads + conditions batch k+1's WAVs (the device analog
   of the reference's PCM ring buffer; SURVEY.md 2.5 "host<->device
   streaming");
 * **checkpoint/resume** — a JSON manifest in the output directory records

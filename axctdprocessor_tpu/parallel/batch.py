@@ -1,8 +1,8 @@
 """Batched multi-drop decode — vmap over drops, data-parallel over a mesh.
 
 This is the archive-reprocessing path (BASELINE.json: "64 WAV drops
-vmapped through the fused demod+parse pipeline").  The TPU engine's
-whole fused decode program (front end + trigger + headers + profile) is
+vmapped through the fused demod+parse pipeline").  The fused engine's
+whole decode program (front end + trigger + headers + profile) is
 vmapped over the batch dimension and, when a mesh is given, sharded over
 its ``dp`` axis so XLA runs each drop's decode on its own device slice
 with zero cross-device traffic (drops are independent).  The entire
@@ -63,22 +63,16 @@ def pad_batch(pcms: list[np.ndarray], dtype=None) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=8)
-def _batched_fused(dims, fs, bitrate, bit_inset, edge_pad, mesh=None,
-                   use_pallas=False):
-    """vmapped whole-decode program (stage 1 + device back half).
-
-    ``use_pallas`` routes the tone-power path through the fused Pallas
-    kernel (vmap adds a batch grid axis; the kernel's sequential-carry
-    semantics hold per batch row) — callers then pass the kernel's
-    trig_segments layout as ``ptrig``."""
-    def one(pcm, n_valid, ptrig, sos, btrig, trig_i, trig_f, hdr_rel,
-            calib_off, coeff_defaults, temp_lut, limits):
+def _batched_fused(dims, fs, bitrate, bit_inset, edge_pad, mesh=None):
+    """vmapped whole-decode program (stage 1 + device back half)."""
+    def decode(pcm, n_valid, ptrig, sos, btrig, trig_i, trig_f, hdr_rel,
+               calib_off, coeff_defaults, temp_lut, limits):
         return eng.fused_core(pcm, n_valid, ptrig, sos, btrig, trig_i,
                               trig_f, hdr_rel, calib_off, coeff_defaults,
                               temp_lut, limits, dims, fs, bitrate,
-                              bit_inset, edge_pad, use_pallas=use_pallas)
+                              bit_inset, edge_pad)
 
-    fn = jax.vmap(one, in_axes=(0, 0) + (None,) * 10)
+    fn = jax.vmap(decode, in_axes=(0, 0) + (None,) * 10)
     if mesh is None:
         return jax.jit(fn)
     sh = NamedSharding(mesh, P("dp", None))
@@ -92,15 +86,16 @@ def _batched_back_half(dims, fs):
     """vmapped device back half, for callers with their own front end
     (the time-sharded dp x sp path); input sharding follows the caller's
     arrays."""
-    def one(r400, r7500, edges, n_edges, s1p, s2p, n_valid, ovf0, trig_i,
-            trig_f, hdr_rel, calib_off, coeff_defaults, temp_lut, limits):
+    def back_half(r400, r7500, edges, n_edges, s1p, s2p, n_valid, ovf0,
+                  trig_i, trig_f, hdr_rel, calib_off, coeff_defaults,
+                  temp_lut, limits):
         c0 = s2p / jnp.maximum(s1p, 1e-30)  # see eng.stage15_core
         return eng.back_half_core(r400, r7500, edges, n_edges, c0,
                                   n_valid, trig_i, trig_f, hdr_rel,
                                   calib_off, coeff_defaults, temp_lut,
                                   limits, dims, fs, overflow0=ovf0)
 
-    return jax.jit(jax.vmap(one, in_axes=(0,) * 8 + (None,) * 7))
+    return jax.jit(jax.vmap(back_half, in_axes=(0,) * 8 + (None,) * 7))
 
 
 def finish_batch(out_host, cfg: DecoderConfig, fs: float, fs_report,
@@ -172,17 +167,8 @@ def dispatch_batch(pcms, fs, config: DecoderConfig | None = None,
     npcm = int(np.round(fs / cfg.bitrate * (1 - cfg.phase_error / 100))) - 2 * cfg.bit_inset
     dims = eng.EngineDims.for_waveform(n, fs, cfg.bitrate, npcm)
     ptrig, btrig, sos = eng.engine_tables(cfg, fs, dims)
-
-    # mirror the monolithic guard (decode_waveform_tpu): the fused Pallas
-    # kernel is float32-only — a float64 request must take the MXU path
-    use_pallas = eng._use_pallas_default() and dtype == jnp.float32
-    if use_pallas:
-        from ..ops.pallas import tonepower
-
-        ptrig = tonepower.trig_segments(
-            dims.n_power, dims.d_pcm, [400.0, 7500.0, cfg.dead_freq], fs)
     fused = _batched_fused(dims, fs, float(cfg.bitrate), cfg.bit_inset, 100,
-                           mesh, use_pallas)
+                           mesh)
     x = jnp.asarray(pcms) if np.issubdtype(pcms.dtype, np.integer) \
         else jnp.asarray(pcms, dtype)
     params = eng.fused_inputs(cfg, fs, dtype)
@@ -212,10 +198,8 @@ def decode_batch(pcms, fs, config: DecoderConfig | None = None,
     batches are conditioned on device; for zero-padded ragged batches
     pass `lengths` (true samples per row) so DC removal averages over
     real samples only and the trigger grid stops at real windows.
-    ``wire`` selects the integer upload format (ops.wire; "auto" = noise-shaped int4
-    per-row quantization on real TPU — a 64-drop batch is upload-bound
-    just like a long single file).  Rows whose int4-wire decode comes
-    back degenerate (the noise-shaped wire's content-dependent cliff —
+    ``wire`` selects the integer upload format (ops.wire; "auto" =
+    int16).  Rows whose int4-wire decode comes back degenerate (the noise-shaped wire's content-dependent cliff —
     eng.lossy_retry_worthy) are re-decoded once at int8 in one padded
     batch dispatch (``lossy_retry=False`` measures the pure int4 path).
     """

@@ -2,7 +2,7 @@
 
 Pattern: drops are *embarrassingly parallel*, so multi-host scaling is
 data partitioning over DCN rather than model sharding — each host runs
-its own intra-pod archive job (ICI meshes via parallel.batch/timeshard)
+its own single-host archive job (meshes via parallel.batch/timeshard)
 over a deterministic, disjoint slice of the corpus.  Hosts only need to
 agree on the file list; results land as per-drop reports + per-host
 manifests that merge trivially.

@@ -1,13 +1,13 @@
 """Two-stage cross-device pipeline for archive decoding.
 
 SURVEY.md 2.5's optional pipeline axis: the DSP front end (stage 1 —
-~95% of device compute: FFT filtering, tone powers, crossing probes)
+most of the device compute: FFT filtering, tone powers, crossing probes)
 runs on one device while the decode back half (trigger + bit decisions +
 headers + profile) for the *previous* batch runs on another.  Batch k's
 front end overlaps batch k-1's back half and the host finish, so the
 front-end device is never idle between batches — the decode analog of
-pipeline parallelism, with the inter-stage activation transfer riding
-ICI (an async device-to-device copy of the stage-1 output tables).
+pipeline parallelism, with the inter-stage activation transfer an async
+device-to-device copy of the stage-1 output tables.
 
 For this workload DP over drops is usually the better use of extra
 devices (drops are independent); the pipeline is for the case where a
@@ -31,14 +31,12 @@ from .batch import _batched_back_half, finish_batch
 
 
 @functools.lru_cache(maxsize=8)
-def _batched_stage1(dims, fs, bitrate, bit_inset, edge_pad,
-                    use_pallas=False):
-    def one(pcm, n_valid, ptrig, sos, btrig):
+def _batched_stage1(dims, fs, bitrate, bit_inset, edge_pad):
+    def stage1(pcm, n_valid, ptrig, sos, btrig):
         return eng.stage1_core(pcm, ptrig, sos, btrig, dims, fs, bitrate,
-                               bit_inset, edge_pad, use_pallas=use_pallas,
-                               n_valid=n_valid)
+                               bit_inset, edge_pad, n_valid=n_valid)
 
-    return jax.jit(jax.vmap(one, in_axes=(0, 0, None, None, None)))
+    return jax.jit(jax.vmap(stage1, in_axes=(0, 0, None, None, None)))
 
 
 def decode_batches_pipelined(batches, fs, config: DecoderConfig | None = None,
@@ -77,15 +75,8 @@ def decode_batches_pipelined(batches, fs, config: DecoderConfig | None = None,
     npcm = int(np.round(fs / cfg.bitrate * (1 - cfg.phase_error / 100))) - 2 * cfg.bit_inset
     dims = eng.EngineDims.for_waveform(n, fs, cfg.bitrate, npcm)
     ptrig, btrig, sos = eng.engine_tables(cfg, fs, dims)
-
-    use_pallas = eng._use_pallas_default()
-    if use_pallas:
-        from ..ops.pallas import tonepower
-
-        ptrig = tonepower.trig_segments(
-            dims.n_power, dims.d_pcm, [400.0, 7500.0, cfg.dead_freq], fs)
     stage1 = _batched_stage1(dims, fs, float(cfg.bitrate), cfg.bit_inset,
-                             100, use_pallas)
+                             100)
     back = _batched_back_half(dims, fs)
     params = eng.fused_inputs(cfg, fs)
 

@@ -3,8 +3,8 @@
 For very long recordings (or many long drops at once), the compute-heavy
 front end — tone-power windows, IIR filtering, zero-crossing extraction,
 per-crossing tone probes — is sharded over the time axis with **halo
-exchange** over ICI (``lax.ppermute`` inside ``shard_map``), the DSP
-analog of ring-attention block overlap (SURVEY.md 2.5):
+exchange** between devices (``lax.ppermute`` inside ``shard_map``), the
+DSP analog of ring-attention block overlap (SURVEY.md 2.5):
 
 * each block receives ``n_power`` raw samples from its right neighbor so
   its strided power windows can straddle the boundary;
@@ -68,7 +68,6 @@ def _sharded_frontend(mesh: Mesh, dims, fs: float, bit_inset: int, edge_pad: int
     assert n % n_sp == 0, "pad with pad_for_mesh first"
     block = n // n_sp
     assert block % dims.d_pcm == 0
-    n_win_blk = block // dims.d_pcm
     cross_halo = dims.npcm + bit_inset + 1
     # crossing capacity is duration-based (Rice-rate ceiling, see
     # ops.chain.CROSSINGS_PER_SECOND), mirroring the bound
@@ -88,9 +87,9 @@ def _sharded_frontend(mesh: Mesh, dims, fs: float, bit_inset: int, edge_pad: int
         if integer_input:
             # condition raw integer PCM on device: the DC mean and peak
             # are global per-row statistics, reduced over the "sp" axis
-            # (psum/pmax ride ICI); zero padding past n_valid contributes
-            # nothing to the sum or the peak, and the mean divides by the
-            # true length so it stays exact
+            # (psum/pmax); zero padding past n_valid contributes nothing
+            # to the sum or the peak, and the mean divides by the true
+            # length so it stays exact
             xf = x_blk.astype(jnp.float32)
             total = lax.psum(jnp.sum(xf, axis=1), "sp")
             peak = lax.pmax(jnp.max(jnp.abs(xf), axis=1), "sp")
@@ -104,23 +103,17 @@ def _sharded_frontend(mesh: Mesh, dims, fs: float, bit_inset: int, edge_pad: int
         right_raw = jnp.where(is_last, 0.0, right_raw)
         x_ext = jnp.concatenate([x_blk, right_raw], axis=1)
 
-        def powers_one(row):
-            starts = jnp.arange(n_win_blk) * dims.d_pcm
-            frames = row[starts[:, None] + jnp.arange(dims.n_power)[None, :]]
-            proj = frames @ ptrig
-            re, im = proj[:, 0::2], proj[:, 1::2]
-            return jnp.sqrt(re * re + im * im)
-
-        powers = jax.vmap(powers_one)(x_ext)  # (b, n_win_blk, 3)
+        # block + n_power samples hold exactly block / d_pcm windows
+        powers = jax.vmap(lambda row: goertzel.framed_tone_power(
+            row, dims.n_power, dims.d_pcm, ptrig))(x_ext)  # (b, wins, 3)
 
         # --- filter with left warm-up halo -------------------------------
         # Overlap-save FFT filtering with the exact SOS response, like the
         # segmented engine (segmented.py): the associative-scan IIR the
-        # blocks previously used is the construction the monolithic engine
-        # documents as a compile-time trap at scale (its log-depth graph
-        # takes tens of minutes to remote-compile at whole-waveform sizes,
-        # tpu_engine.stage1_core) — and SP exists for exactly the longest
-        # files, whose per-device blocks are minutes of audio.  The WARMUP
+        # blocks previously used has a log-depth graph whose compile time
+        # grows with block length (tpu_engine.stage1_core) — and SP
+        # exists for exactly the longest files, whose per-device blocks
+        # are minutes of audio.  The WARMUP
         # left halo absorbs both the filter ring-in and the circular
         # wrap-around (IIR transient < ~1k samples << WARMUP).
         left_raw = lax.ppermute(x_blk[:, -WARMUP:], "sp", fwd)

@@ -68,8 +68,7 @@ def format_report(result: DecodeResult, wavfile: str, timerange,
     out(f'Points per loop: {echo_settings["pointsperloop"]}\n')
     out(f'Trigger range: {tr[0]} sec to {tr[1] if tr[1] >= 0 else "N/A"} sec\n')
     if diagnostics and result.wire is not None:
-        # attribution: "auto" wire resolves per backend (noise-shaped int4 on real TPU,
-        # int16 elsewhere), so the diagnostics report records what ran;
+        # attribution: the diagnostics report records which wire ran;
         # the default report stays byte-identical to upstream
         out(f"Wire format: {result.wire}\n")
 

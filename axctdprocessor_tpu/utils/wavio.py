@@ -52,7 +52,7 @@ def read_wav_raw16(path: str, timerange=(0, -1), allow_highrate=False):
     conditioning; >50 kHz needs the decimator unless the caller
     decimates on device — ``allow_highrate``).
 
-    The TPU engine conditions integer PCM on device, so this read avoids
+    The fused engine conditions integer PCM on device, so this read avoids
     both the host float conversion and half the host->device bytes.
     """
     fs, snd = wavfile.read(path, mmap=True)

@@ -2,7 +2,7 @@
 """End-to-end demo: synthesize an AXCTD drop, decode it three ways.
 
 Run from the repo root:  python examples/decode_demo.py
-(On a machine without a TPU, set JAX_PLATFORMS=cpu.)
+(On a machine without a GPU, set JAX_PLATFORMS=cpu.)
 """
 
 import numpy as np
@@ -26,9 +26,9 @@ def main():
           f"serial {res.metadata['serial_no']}, "
           f"T {res.temperature[0]:.2f} -> {res.temperature[-1]:.2f} C")
 
-    # 3. fused TPU engine
+    # 3. fused device engine
     res = decode_wav_tpu("demo_drop.wav")
-    print(f"tpu engine    : {len(res.time)} rows, "
+    print(f"fused engine  : {len(res.time)} rows, "
           f"S {res.salinity[0]:.2f} -> {res.salinity[-1]:.2f} PSU")
 
     # 4. realtime streaming (0.5 s radio blocks)

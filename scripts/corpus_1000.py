@@ -3,9 +3,9 @@
 
 BASELINE.md:27 commits to "1000-drop corpus" reprocessing; bench.py
 measures a 64-drop scale unit per run.  This script runs the real thing
-once, end to end on the chip, and records the artifact (VERDICT r3
-missing #3): manifest growth, quarantine behavior, read-ahead threading
-and sustained corpus throughput at a scale 64 drops never exercises.
+once, end to end on the accelerator, and records the artifact: manifest
+growth, quarantine behavior, read-ahead threading and sustained corpus
+throughput at a scale 64 drops never exercises.
 
 Corpus: 1000 WAVs of mixed duration (45/60/90/120 s) and rate (44.1 kHz
 plus an 88.2 kHz slice exercising on-device decimation), independent
@@ -22,9 +22,6 @@ import os
 import shutil
 import sys
 import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "10")
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -112,9 +109,9 @@ def main():
         durs[name] = nbytes / 2 / fs
     audio_s = float(sum(durs.values()))
 
-    # resume from an existing manifest by default: relay outage windows
-    # (observed: 1+ h) can wedge a run mid-corpus, and redoing finished
-    # files would conflate outage wall with decode wall.  corpus_rtf is
+    # resume from an existing manifest by default: an interrupted run
+    # picks up where it stopped, and redoing finished files would
+    # conflate the interruption with decode wall.  corpus_rtf is
     # computed over the audio decoded THIS run only.
     prev_done = set()
     man_path = os.path.join(OUT_DIR, "manifest.json")

@@ -2,8 +2,8 @@
 """Mechanism isolation for the int4-ns batch-row failures: decode one
 failing row with (a) noise-shaped int4 (C encoder), (b) plain-rounded
 int4 (numpy fallback), (c) int8, and (d) noise-shaped int4 on the SAME
-row without its added noise.  Run on CPU:
-    env -u PYTHONPATH JAX_PLATFORMS=cpu PYTHONPATH=/root/repo
+row without its added noise.  Run on the CPU from the repository root:
+    JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/diagnose_int4_row.py [ROW]
 """
 
 import sys

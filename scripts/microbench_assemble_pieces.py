@@ -6,11 +6,7 @@ smoothing, crossing merge/compaction, the bit-edge chain, and the full
 device back half (trigger + calibration + headers + profile stage).
 """
 
-import os
 import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "10")
 
 import numpy as np
 import jax
@@ -119,11 +115,10 @@ def main():
     d = jax.jit(lambda pwr, g, q1: upto_chain(pwr, g, q1)[0])
 
     def backhalf_upto(level: int):
-        """Cumulative in-context cuts INSIDE the back half: the isolated
-        microbench_backhalf pieces sum to ~21 ms, yet the in-program back
-        half measures ~165 ms — the overhead lives in composition
-        (layout/fusion choices XLA makes only in the full program), so
-        the decomposition must run in context."""
+        """Cumulative in-context cuts INSIDE the back half: isolated
+        pieces (microbench_backhalf) can sum to far less than the
+        in-program back half — layout/fusion choices XLA makes only in
+        the full program — so the decomposition runs in context."""
 
         def f(pwr, g, q1):
             s, (r400, r7500, g_s, q1s, edge_idx, n_edges) = \

@@ -1,17 +1,13 @@
 #!/usr/bin/env python3
-"""On-chip decomposition of back_half_core (~60 ms of the assemble
-program at 600 s scale): times each sub-stage independently on
+"""On-chip decomposition of back_half_core (the assemble program's
+device back half at 600 s scale): times each sub-stage independently on
 realistic-shaped random inputs, plus the expensive stage-2 primitives
 (CRC all-windows, frame sync, frame-window gather, QC percentile
 sorts) in isolation.  Each timed program folds its full output into one
 scalar so XLA cannot dead-code the work and the fetch cost is constant.
 """
 
-import os
 import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "10")
 
 import numpy as np
 import jax

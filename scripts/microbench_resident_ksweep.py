@@ -11,9 +11,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "10")
-
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np

@@ -13,9 +13,6 @@ import subprocess
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "10")
-
 
 def child(duration: float, mode: str) -> None:
     import numpy as np

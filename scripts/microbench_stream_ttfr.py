@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Live-receiver latency of the TPU streaming decoder (VERDICT r3 #6).
+"""Live-receiver latency of the device streaming decoder.
 
-Measures, on the real chip, what a realtime embedder cares about:
+Measures, on the accelerator, what a realtime embedder cares about:
 
 * ``prewarm_s``      — TPUStreamDecoder(fs, max_duration=...) wall: the
                        one-time cost paid BEFORE the drop (segment +
@@ -20,15 +20,12 @@ Writes bench_artifacts/stream_ttfr.json.
 Replaces the reference's realtime loop (AXCTDprocessor.py:119,283,338 —
 per-chunk host demod with sleep-yield), whose per-chunk latency IS its
 chunk time; here the segment program + pinned assemble run async on the
-chip and a snapshot is one assemble dispatch.
+device and a snapshot is one assemble dispatch.
 """
 
 import os
 import sys
 import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "10")
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 

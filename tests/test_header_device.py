@@ -142,3 +142,30 @@ def test_digit_sign_coefficient_form(rng):
     assert int(np.asarray(mant)[0, 3]) / 1e7 * 10 ** int(np.asarray(exp)[0, 3]) \
         == expected
     assert abs(float(np.asarray(values)[0, 3]) - expected) < 1e-4 * expected
+
+
+def test_repeated_counter_later_frame_wins():
+    """A counter sent twice keeps the later frame's data, as the host
+    parser's dict assignment does — whatever order the device applies
+    the slot writes in."""
+    hdr = simulator.encode_header_frames()
+    repeats = [simulator.encode_header_frame(k, "abcd") for k in (4, 9, 60)]
+    # frames 0..65, then repeats of counters 4, 9 and 60 (none inside a
+    # decimal coefficient), then 66..71: each repeat arrives after the
+    # original and must replace it
+    bits = np.concatenate([hdr[:66].ravel(), np.concatenate(repeats),
+                           hdr[66:].ravel()])
+    stream = np.concatenate([np.ones(1200, np.int64), bits])
+    trimmed = host_frames.trim_header(stream)
+    host = host_frames.parse_header(trimmed)
+    assert [host["frame_data"][k] for k in (4, 9, 60)] == ["abcd"] * 3
+
+    buf, n = _pad(trimmed)
+    found, frames = dev.parse_header_frames(buf, jnp.asarray(n, jnp.int32))
+    np.testing.assert_array_equal(np.asarray(found), host["counter_found"])
+    from axctdprocessor_tpu.ops.bits import nibbles_to_hex_np
+
+    hexes = nibbles_to_hex_np(np.asarray(frames))
+    for k in range(72):
+        if host["counter_found"][k]:
+            assert hexes[k] == host["frame_data"][k], k

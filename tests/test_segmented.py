@@ -226,30 +226,30 @@ def test_auto_route_over_300s_matches_parity():
     pcm, truth = simulator.synthesize(spec)
     x = _conditioned(pcm)
 
-    tpu = decode_waveform_tpu(x, 44100)          # auto-routes: > 300 s
+    dev = decode_waveform_tpu(x, 44100)          # auto-routes: > 300 s
     host = decode_waveform(x.astype(np.float64), 44100)
 
-    assert tpu.status == host.status == 2
-    assert tpu.metadata["serial_no"] == host.metadata["serial_no"] \
+    assert dev.status == host.status == 2
+    assert dev.metadata["serial_no"] == host.metadata["serial_no"] \
         == truth["serial_no"]
-    assert tpu.metadata == host.metadata
-    assert tpu.firstpulse400 == host.firstpulse400
-    assert tpu.overflow == 0
+    assert dev.metadata == host.metadata
+    assert dev.firstpulse400 == host.firstpulse400
+    assert dev.overflow == 0
     # demod/frame-sync agreement: near-perfect at full scale (measured
     # 1.0 on this drop; leave headroom for float jitter)
-    a, b = set(tpu.hexframes), set(host.hexframes)
+    a, b = set(dev.hexframes), set(host.hexframes)
     assert len(a & b) / max(len(a | b), 1) > 0.99
     # QC'd row counts drift more (per-bit r-value tagging differs by the
     # documented uniform-grid-vs-chunk-local deviation, flipping rows
     # that straddle the thresholds) — bound it loosely
-    assert abs(len(tpu.time) - len(host.time)) < 0.10 * len(host.time)
+    assert abs(len(dev.time) - len(host.time)) < 0.10 * len(host.time)
     # values joined BY FRAME must match exactly: temperature depends only
     # on the frame bits + decoded coefficients (both engines round to 2)
     # frames repeat heavily (profile values plateau: ~1750 unique among
     # ~6500 rows), so the frame-keyed join is over UNIQUE frames; nearly
-    # all of the host's QC'd frames must appear on the TPU side
+    # all of the host's QC'd frames must appear on the device side
     # (measured: 1497 common of host's 1509 unique)
-    t_tpu = {h: t for h, t in zip(tpu.hexframes_qc, tpu.temperature)}
+    t_tpu = {h: t for h, t in zip(dev.hexframes_qc, dev.temperature)}
     t_host = {h: t for h, t in zip(host.hexframes_qc, host.temperature)}
     common = set(t_tpu) & set(t_host)
     assert len(common) > 0.95 * len(set(host.hexframes_qc)) > 1000

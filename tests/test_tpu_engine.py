@@ -1,6 +1,6 @@
-"""Fused TPU engine vs parity engine / encoder truth.
+"""Fused device engine vs parity engine / encoder truth.
 
-The TPU engine is not byte-identical to the reference (documented
+The fused engine is not byte-identical to the reference (documented
 deviations: uniform power grid, whole-waveform filtering, true bit
 timing instead of the upstream duplicated-index drift), so these tests
 check decode *correctness*: metadata exactness, frame recovery rate,
@@ -204,7 +204,7 @@ def test_trigger_timeout_ignores_bucket_padding():
 # the fs-type quirk; the quirk itself is also covered by report goldens
 def test_fs_report_type_preserved():
     """The report prints fs verbatim: float fs (post-decimation) must
-    stay float through the TPU engine, int fs must stay int."""
+    stay float through the fused engine, int fs must stay int."""
     from axctdprocessor_tpu.models import simulator, tpu_engine
 
     spec = simulator.SimSpec(duration=16.0, seed=6)

@@ -1,4 +1,4 @@
-"""Unit tests for the TPU core ops (run on CPU in x64 for exactness)."""
+"""Unit tests for the device core ops (run on CPU in x64 for exactness)."""
 
 import numpy as np
 import pytest
